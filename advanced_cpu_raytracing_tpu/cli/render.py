@@ -17,7 +17,7 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="TPU-native ray tracer")
+    parser = argparse.ArgumentParser(description="JAX ray tracer")
     parser.add_argument("scene", help="XML scene file")
     parser.add_argument("--out-dir", default=".", help="output directory")
     parser.add_argument("--seed", type=int, default=0)
@@ -29,6 +29,11 @@ def main(argv=None) -> int:
                              "(jax.sharding mesh; scene replicated)")
     args = parser.parse_args(argv)
 
+    from advanced_cpu_raytracing_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     from advanced_cpu_raytracing_tpu.post.tonemap import reinhard_tonemap
     from advanced_cpu_raytracing_tpu.post.writers import write_hdr, write_png
     from advanced_cpu_raytracing_tpu.render.renderer import (

@@ -1,7 +1,7 @@
-"""Gradient-based scene-parameter optimization (inverse rendering demo).
+"""Gradient-based scene-parameter optimization (inverse rendering).
 
-Covers BASELINE.json config 5: optimize material/light parameters so the
-rendered image matches a target, via Adam over the differentiable renderer.
+Optimize material/light parameters so the rendered image matches a target,
+via Adam over the differentiable wavefront renderer.
 """
 
 from __future__ import annotations
@@ -29,38 +29,11 @@ def make_loss(cam, px, py, opts: RenderOptions, target):
 
 
 def optimize(pack, cam, px, py, opts: RenderOptions, target, fields,
-             steps: int = 50, lr: float = 5e-2, seed: int = 0,
-             use_fused: bool | None = None):
-    """Returns (optimized pack, loss history).
-
-    On TPU, eligible Whitted scenes route through the fused fwd+bwd Pallas
-    kernel (ops/pallas/megabwd.py) — parameters are traced tables there, so
-    every optimizer step reuses one executable.  ``use_fused`` overrides the
-    automatic routing (tests force it on in interpret mode off-TPU)."""
+             steps: int = 50, lr: float = 5e-2, seed: int = 0):
+    """Returns (optimized pack, loss history).  Parameters are traced
+    leaves of the pack, so every step reuses one executable."""
     params = extract_params(pack, fields)
-    from advanced_cpu_raytracing_tpu.ops.pallas.megabwd import (
-        bwd_eligible,
-        make_diff_render,
-    )
-
-    use_dof = bool(getattr(cam, "use_dof", False))
-    if use_fused is None:
-        use_fused = (jax.default_backend() == "tpu" and not use_dof
-                     and bwd_eligible(pack.static, opts, pack))
-    if use_fused and not use_dof and bwd_eligible(pack.static, opts, pack):
-        from advanced_cpu_raytracing_tpu.render.camera import generate_rays
-
-        render = make_diff_render(
-            pack, opts, interpret=jax.default_backend() != "tpu")
-        o, d = generate_rays(cam, px, py, jnp.zeros((px.shape[0], 2)),
-                             dof=False)
-        target_a = jnp.asarray(target)
-
-        def loss_fn(params, pack, key):
-            img = render(params, o, d)
-            return jnp.mean((img - target_a) ** 2)
-    else:
-        loss_fn = make_loss(cam, px, py, opts, jnp.asarray(target))
+    loss_fn = make_loss(cam, px, py, opts, jnp.asarray(target))
     tx = optax.adam(lr)
     opt_state = tx.init(params)
 

@@ -1,8 +1,10 @@
 """Build the native runtime library (libacrt.so) with g++.
 
 Invoked lazily by bindings.py on first use (and by `python -m
-advanced_cpu_raytracing_tpu.native.build` explicitly).  Pure C ABI — no
-pybind11 needed; Python talks to it via ctypes.
+advanced_cpu_raytracing_tpu.native.build` explicitly).  The library goes to
+``_build/`` beside the sources, which git ignores: it is always built on the
+host that loads it, for the generic x86-64 target, never committed.  Pure C
+ABI — no pybind11 needed; Python talks to it via ctypes.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import os
 import subprocess
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-LIB = os.path.join(HERE, "libacrt.so")
+LIB = os.path.join(HERE, "_build", "libacrt.so")
 SOURCES = ["bvh_builder.cpp", "ply_reader.cpp"]
 
 
@@ -20,8 +22,8 @@ def build(force: bool = False) -> str | None:
     if not force and os.path.exists(LIB):
         if all(os.path.getmtime(LIB) >= os.path.getmtime(s) for s in srcs):
             return LIB
-    cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           "-o", LIB, *srcs]
+    os.makedirs(os.path.dirname(LIB), exist_ok=True)
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", LIB, *srcs]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
     except (subprocess.CalledProcessError, FileNotFoundError):

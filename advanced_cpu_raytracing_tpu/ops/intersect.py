@@ -1,4 +1,4 @@
-"""Primitive intersection kernels (batched jnp; Pallas variants in ops/pallas).
+"""Primitive intersection kernels (batched jnp).
 
 All kernels are pure functions over arrays: rays are (o, d) with non-unit d
 allowed (t is preserved across affine ray transforms exactly as in the
@@ -95,10 +95,10 @@ def ray_sphere(o, d, center, radius):
 def _matvec3(m, v):
     """(..., 3, 3+) @ (..., 3) via explicit FMA.
 
-    Deliberately NOT einsum/dot: on TPU those lower onto the MXU which
-    truncates f32 inputs to bf16 by default — enough to visibly perturb ray
-    geometry.  Elementwise multiply-add runs on the VPU in full f32 (and is
-    faster for 3-vectors anyway).
+    Deliberately NOT einsum/dot: a matrix unit may run those at reduced
+    precision by default (TF32 on a GPU's tensor cores) — enough to visibly
+    perturb ray geometry.  Elementwise multiply-add stays in full f32 (and
+    is faster for 3-vectors anyway).
     """
     return (
         m[..., :, 0] * v[..., 0:1] + m[..., :, 1] * v[..., 1:2]

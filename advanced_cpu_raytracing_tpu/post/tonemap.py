@@ -8,8 +8,7 @@ Two passes expressed as jit-friendly reductions:
      exponent on channel ratios, inverse-gamma encode, floor to 8-bit.
 
 ``reinhard_tonemap_sharded`` (below) runs the same two passes on a pixel
-batch sharded across a device mesh: the log-mean lowers to a psum over ICI
-and the percentile's global sort to an XLA-inserted all-gather + sort (the
+batch sharded across a device mesh: the log-mean lowers to a psum and the percentile's global sort to an XLA-inserted all-gather + sort (the
 statistic is over the full W*H*3 sample set, so cross-shard data movement is
 inherent; 12 B/pixel of gather is negligible next to the render itself).
 Padded lanes are excluded from both statistics via the ``mask`` argument.
@@ -112,7 +111,7 @@ def reinhard_tonemap_sharded(hdr, mesh, key_value: float = 0.18,
                              saturation: float = 1.0,
                              gamma: float = 2.2) -> np.ndarray:
     """Two-pass Reinhard over an (H,W,3) image with pixels sharded across
-    ``mesh``'s devices.  The log-mean reduction lowers to a psum over ICI;
+    ``mesh``'s devices.  The log-mean reduction lowers to a psum;
     the percentile's global sort to an all-gather + sort (see module
     docstring).  Bit-identical to the single-device path up to fp reduction
     order."""

@@ -32,7 +32,7 @@ def env_sample_radiance(pack, d):
 
 
 def direct_lighting(pack, surf: Surface, w_o, time, key, skip_mlight=None,
-                    allow_pallas: bool = True, mat_rows=None,
+                    mat_rows=None,
                     differentiable: bool = False):
     """Sum of all direct-light contributions at the surface points.
 
@@ -41,8 +41,8 @@ def direct_lighting(pack, surf: Surface, w_o, time, key, skip_mlight=None,
 
     Shadow rays for ALL lights are batched into ONE occlusion query (a
     (L*R,)-lane `occluded` call): the intersection work is identical to L
-    serial passes, but fixed per-dispatch costs are paid once and the VPU
-    stays saturated.  The reference scans lights serially per shading point
+    serial passes, but fixed per-dispatch costs are paid once and the
+    device stays saturated.  The reference scans lights serially per shading point
     (SampleDirectLighting, raytracer.cpp:701-806).
     """
     st = pack.static
@@ -168,14 +168,13 @@ def direct_lighting(pack, surf: Surface, w_o, time, key, skip_mlight=None,
     n_shadow = len(w_is)
     if n_shadow == 1:
         blocked_all = occluded(pack, shadow_o, w_is[0], limits[0], time,
-                               allow_pallas, differentiable)[None]
+                               differentiable)[None]
     elif n_shadow > 1:
         big_o = jnp.tile(shadow_o, (n_shadow, 1))
         big_d = jnp.concatenate(w_is, axis=0)
         big_lim = jnp.concatenate(limits, axis=0)
         big_t = jnp.tile(time, n_shadow)
         blocked_all = occluded(pack, big_o, big_d, big_lim, big_t,
-                               allow_pallas,
                                differentiable).reshape(n_shadow, r)
 
     # ---- phase 3: shading per light (cheap, elementwise) ----

@@ -3,17 +3,25 @@
 Replaces the reference's vendored stb_image / tinyexr (src/LDRImage.h:40,
 src/HDRImage.h:45-70):
 
-  - LDR (png/jpg...) decode via PIL -> float32 arrays kept in **0..255**
-    range, matching ``LDRImage::GetSample`` returning raw bytes.
-  - EXR decode via imageio (if built with an EXR plugin) or a minimal native
-    reader; falls back with a clear error.
+  - PNG (8-bit gray / gray+alpha / RGB / RGBA, non-interlaced) encode and
+    decode implemented here with zlib + numpy.  Decoded LDR values stay in
+    **0..255** as float32, matching ``LDRImage::GetSample`` returning raw
+    bytes.  Other LDR formats (JPEG, palette or 16-bit PNG, ...) go through
+    Pillow, which is needed only when a scene names such a file.
+  - EXR decode via a minimal built-in reader (uncompressed scanline files).
   - Radiance ``.hdr`` (RGBE) encode/decode implemented here directly —
     the reference writes .hdr via stb_image_write (src/main.cpp:191).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
 
 
 def load_image(path: str) -> tuple[np.ndarray, bool]:
@@ -27,24 +35,103 @@ def load_image(path: str) -> tuple[np.ndarray, bool]:
         return load_exr(path), True
     if lower.endswith(".hdr"):
         return read_hdr(path), True
-    from PIL import Image
+    rgb = read_png(path) if _is_plain_png(path) else _load_with_pillow(path)
+    return rgb.astype(np.float32), False
 
+
+def _load_with_pillow(path: str) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: only 8-bit non-interlaced PNG, .exr and .hdr images "
+            "are decoded natively; this file needs the Pillow package") from e
     with Image.open(path) as im:
-        im = im.convert("RGB")
-        data = np.asarray(im, dtype=np.float32)
-    return data, False
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
+
+def _is_plain_png(path: str) -> bool:
+    """True for PNGs read_png decodes: 8-bit, no palette, non-interlaced."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if len(head) < 29 or head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
+        return False
+    depth, ctype, _, _, interlace = head[24:29]
+    return depth == 8 and ctype in _PNG_CHANNELS and interlace == 0
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit non-interlaced gray / gray+alpha / RGB / RGBA PNG to
+    (H, W, 3) uint8.  Gray is replicated and alpha dropped, as Pillow's
+    ``convert("RGB")`` does."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos + 8 <= len(raw):
+        n, kind = struct.unpack_from(">I4s", raw, pos)
+        body = raw[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG has no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: unsupported PNG layout "
+                         f"(depth {depth}, colour type {ctype})")
+    bpp = _PNG_CHANNELS[ctype]
+    stride = w * bpp
+    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    data = data[: h * (stride + 1)].reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = data[y, 0], data[y, 1:]
+        if ftype == 0:  # None
+            cur = line.copy()
+        elif ftype == 1:  # Sub: running sum per channel
+            cur = np.cumsum(line.reshape(w, bpp).astype(np.uint32), axis=0)
+            cur = (cur % 256).astype(np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            cur = line + prev
+        elif ftype in (3, 4):  # Average / Paeth: sequential along the row
+            cur = _unfilter_seq(ftype, line, prev, bpp)
+        else:
+            raise ValueError(f"{path}: bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    px = out.reshape(h, w, bpp)
+    if bpp <= 2:
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def _unfilter_seq(ftype: int, line, prev, bpp: int) -> np.ndarray:
+    cur = np.zeros(line.shape[0], np.int32)
+    line = line.astype(np.int32)
+    prev = prev.astype(np.int32)
+    for i in range(line.shape[0]):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        if ftype == 3:
+            pred = (a + b) // 2
+        else:
+            c = prev[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (line[i] + pred) & 0xFF
+    return cur.astype(np.uint8)
 
 
 def load_exr(path: str) -> np.ndarray:
-    try:
-        # built-in reader first: handles uncompressed scanline files exactly,
-        # and this environment's imageio has no real EXR plugin (its spe
-        # plugin mis-claims .exr files)
-        data = read_exr(path)
-    except Exception:
-        import imageio.v2 as imageio
-
-        data = np.asarray(imageio.imread(path), dtype=np.float32)
+    data = read_exr(path)
     if data.ndim == 2:
         data = np.stack([data] * 3, axis=-1)
     # RGBA -> RGB, mirroring HDRImage's RGBA->RGB repack (src/HDRImage.h:58-66)
@@ -59,8 +146,6 @@ def write_exr(path: str, rgb: np.ndarray) -> None:
     src/HDRImage.h:45-70) plus the encode side it lacks; tinyexr reads this
     output (verified by the env-light cross-validation test).
     """
-    import struct
-
     rgb = np.asarray(rgb, np.float32)
     h, w, _ = rgb.shape
 
@@ -106,8 +191,6 @@ def read_exr(path: str) -> np.ndarray:
     """Minimal OpenEXR reader: single-part uncompressed scanline images with
     HALF or FLOAT channels (covers write_exr output and tinyexr's
     NO_COMPRESSION files)."""
-    import struct
-
     with open(path, "rb") as f:
         raw = f.read()
     if struct.unpack_from("<i", raw, 0)[0] != 20000630:
@@ -165,11 +248,29 @@ def read_exr(path: str) -> np.ndarray:
     return np.stack([first] * 3, axis=-1)
 
 
+def encode_png(rgb_u8: np.ndarray) -> bytes:
+    """(H,W,3) uint8 -> 8-bit RGB PNG bytes, every scanline unfiltered."""
+    img = np.ascontiguousarray(np.asarray(rgb_u8, dtype=np.uint8))
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"PNG encoder expects (H, W, 3) RGB, got {img.shape}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def write_png(path: str, rgb_u8: np.ndarray) -> None:
     """Write (H,W,3) uint8 to PNG (reference: stbi_write_png, main.cpp:195)."""
-    from PIL import Image
-
-    Image.fromarray(np.asarray(rgb_u8, dtype=np.uint8), mode="RGB").save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb_u8))
 
 
 def write_hdr(path: str, rgb: np.ndarray) -> None:

@@ -2,9 +2,9 @@
 
 The reference ships no scene above ~78k faces (ton_Roosendaal), yet its
 per-mesh BVH handles any face count (src/mesh.cpp:23-156).  These builders
-produce arbitrarily large geometry so the HBM-streamed megakernel path
-(ops/pallas/megakernel.py stream_geo) can be exercised and benchmarked
-beyond the VMEM-resident ceiling.
+produce arbitrarily large geometry so the BVH traversal path can be
+exercised and benchmarked at scale, and at the brute-force cap
+(``terrain_scene(n=33)`` is exactly BRUTE_FORCE_MAX_ITEMS faces).
 """
 
 from __future__ import annotations
@@ -28,11 +28,10 @@ def terrain_scene(n: int = 513, width: int = 640, height: int = 480,
                   textured: bool = False) -> SceneConfig:
     """A rolling heightfield of 2*(n-1)^2 triangles under one point light.
 
-    n = 513 -> 524,288 faces (past the 98,304-face VMEM ceiling); the height
-    function is a fixed sum of sines, so scenes are reproducible across
-    hosts without RNG.  ``textured`` drapes a procedural 96x96 bilinear
-    replace_kd image over the whole field (round 5: textures stream with
-    the geometry)."""
+    n = 513 -> 524,288 faces; the height function is a fixed sum of sines,
+    so scenes are reproducible across hosts without RNG.  ``textured``
+    drapes a procedural 96x96 bilinear replace_kd image over the whole
+    field."""
     xs = np.linspace(-8.0, 8.0, n, dtype=np.float64)
     zs = np.linspace(-16.0, 0.0, n, dtype=np.float64)
     gx, gz = np.meshgrid(xs, zs, indexing="ij")

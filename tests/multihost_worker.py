@@ -48,8 +48,8 @@ def main() -> int:
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
 
-    cfg = load_scene(
-        "/root/reference/archive/hw1_inputs/simple.xml")
+    cfg = load_scene(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "data", "simple.xml"))
     pack = pack_scene(cfg)
     cam = build_camera(cfg.cameras[0])
     opts = RenderOptions(max_depth=cfg.max_recursion_depth)

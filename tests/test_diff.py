@@ -18,10 +18,17 @@ from advanced_cpu_raytracing_tpu.render.integrator import (
 def setup():
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-    from tests.conftest import HW1_INPUTS
+    from tests.conftest import SIMPLE_XML
 
-    cfg = load_scene(str(HW1_INPUTS / "simple.xml"))
-    pack = pack_scene(cfg)
+    pack = pack_scene(load_scene(str(SIMPLE_XML)))
+    return pack, _simple_loss(pack)
+
+
+def _simple_loss(pack):
+    from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
+    from tests.conftest import SIMPLE_XML
+
+    cfg = load_scene(str(SIMPLE_XML))
     cam = build_camera(cfg.cameras[0])
     opts = RenderOptions(max_depth=cfg.max_recursion_depth,
                          differentiable=True, max_iters=4)
@@ -35,7 +42,7 @@ def setup():
         img = trace_radiance(p, cam, px, py, key, opts)
         return jnp.sum(img) / 1000.0
 
-    return pack, loss
+    return loss
 
 
 def test_grad_matches_finite_difference_diffuse(setup):
@@ -73,9 +80,9 @@ def test_optimize_recovers_diffuse():
     from advanced_cpu_raytracing_tpu.diff.optimize import optimize
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-    from tests.conftest import HW1_INPUTS
+    from tests.conftest import SIMPLE_XML
 
-    cfg = load_scene(str(HW1_INPUTS / "simple.xml"))
+    cfg = load_scene(str(SIMPLE_XML))
     pack = pack_scene(cfg)
     cam_cfg = cfg.cameras[0]
     cam = build_camera(cam_cfg)
@@ -139,28 +146,26 @@ def test_grad_full_image_scale():
 
 def test_grad_invariant_to_topology_source(setup):
     """Differentiable renders decide WHICH triangle wins on a
-    stop-gradient fast path and recompute the winner differentiably
+    stop-gradient path and recompute the winner differentiably
     (ops/traverse.py::closest_hit).  The gradients must therefore not
-    depend on which fast path picked the topology: jnp brute, the Pallas
-    kernel (interpret mode here), or the per-entity BVH walk."""
+    depend on how that path found the winner: here the brute-force work
+    items are stored in reverse order, so the dense argmin walks them the
+    other way round."""
     import dataclasses
-
-    from advanced_cpu_raytracing_tpu.ops import traverse
 
     pack, loss = setup
     params = extract_params(pack, ("mat_diffuse", "verts"))
-    g_jnp = jax.grad(loss)(params)
+    g_fwd = jax.grad(loss)(params)
 
-    old = traverse.USE_PALLAS_BRUTE
-    try:
-        traverse.USE_PALLAS_BRUTE = True  # interpret-mode Pallas on CPU
-        g_pallas = jax.grad(loss)(params)
-    finally:
-        traverse.USE_PALLAS_BRUTE = old
+    rev = {k: getattr(pack, k)[::-1] for k in (
+        "wi_ent", "wi_face", "wi_v0", "wi_v1", "wi_v2", "wi_motion",
+        "ws_v0", "ws_v1", "ws_v2", "ws_motion")}
+    loss_rev = _simple_loss(dataclasses.replace(pack, **rev))
+    g_rev = jax.grad(loss_rev)(params)
 
     for k in params:
         np.testing.assert_allclose(
-            np.asarray(g_jnp[k]), np.asarray(g_pallas[k]),
+            np.asarray(g_fwd[k]), np.asarray(g_rev[k]),
             rtol=1e-4, atol=1e-6, err_msg=k)
 
 
@@ -173,9 +178,9 @@ def test_grad_bvh_strategy_differentiable():
     from advanced_cpu_raytracing_tpu.render.camera import build_camera
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-    from tests.conftest import HW1_INPUTS
+    from tests.conftest import SIMPLE_XML
 
-    cfg = load_scene(str(HW1_INPUTS / "simple.xml"))
+    cfg = load_scene(str(SIMPLE_XML))
     pack = pack_scene(cfg)
     pack_bvh = dataclasses.replace(
         pack, static=dataclasses.replace(pack.static, use_bvh=True))

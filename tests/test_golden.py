@@ -55,12 +55,11 @@ def _render(name, spp=None, force_bvh=False):
 
 @pytest.mark.golden
 @pytest.mark.parametrize("name,mean_tol,frac_tol", CASES)
-def test_golden(name, mean_tol, frac_tol):
+def test_golden(reference_inputs, name, mean_tol, frac_tol):
     if not os.environ.get("ACRT_FULL_GOLDENS"):
         pytest.skip("full-res golden renders cost ~1 min/scene of CPU compile "
                     "+ render; the small-res tier below checks every scene "
-                    "against the same fresh oracle in seconds, and "
-                    "tools/tpu_verify.py sweeps full-res on TPU.  Set "
+                    "against the same fresh oracle in seconds.  Set "
                     "ACRT_FULL_GOLDENS=1 to run these too")
     ours = _render(name)
     gold = fresh_golden(name)
@@ -96,15 +95,14 @@ SMALL_CASES = [
 
 @pytest.mark.golden
 @pytest.mark.parametrize("name,mean_tol,frac_tol", SMALL_CASES)
-def test_golden_smallres(name, mean_tol, frac_tol):
+def test_golden_smallres(reference_inputs, name, mean_tol, frac_tol):
     import re
 
     from tests.conftest import fresh_golden_custom
 
     xml = (HW1_INPUTS / f"{name}.xml").read_text()
     # scienceTree_diamond's deterministic dielectric split tree costs ~6 min
-    # of CPU wavefront time even at 1/6 scale — shrink it harder (the TPU
-    # sweep in tools/tpu_verify.py covers it at full resolution)
+    # of CPU wavefront time even at 1/6 scale — shrink it harder
     factor = 24 if name == "scienceTree_diamond" else 6
 
     def shrink(m):
@@ -134,7 +132,7 @@ def test_golden_smallres(name, mean_tol, frac_tol):
 
 
 @pytest.mark.golden
-def test_golden_simple_bvh_path():
+def test_golden_simple_bvh_path(reference_inputs):
     # same scene through the BVH traversal path must match the golden too
     ours = _render("simple", force_bvh=True)
     gold = golden_image("simple")
@@ -161,9 +159,7 @@ def test_golden_ton_roosendaal_bvh():
 
     if not os.environ.get("ACRT_FULL_GOLDENS"):
         pytest.skip("78k-face full-res render through the CPU BVH path takes "
-                    "minutes; set ACRT_FULL_GOLDENS=1 (the TPU megakernel "
-                    "run and mega==brute cross-check cover this scene — "
-                    "BASELINE.md)")
+                    "minutes; set ACRT_FULL_GOLDENS=1")
     scene = HW1_INPUTS / "akif_uslu" / "ton_Roosendaal_smooth.xml"
     gold_path = HW1_OUTPUTS / "akif_uslu" / "ton_Roosendaal_smooth.png"
     if not scene.exists() or not gold_path.exists():
@@ -189,15 +185,15 @@ def test_golden_ton_roosendaal_bvh():
 
 # tower_smooth and windmill_smooth are NOT here: the reference binary hangs
 # on them at ANY resolution (tower: >20 min at 135x240, 27% of host RAM;
-# windmill: killed after minutes at 100x100) — our renderer handles both
-# (BASELINE.md records TPU timings).  trex/lobster/other_dragon miss PLY
+# windmill: killed after minutes at 100x100) — our renderer handles both.
+# trex/lobster/other_dragon miss PLY
 # assets (see PARITY.md triage).
 CONTRIB = ["berserker_smooth", "car_smooth_fixed", "low_poly_smooth"]
 
 
 @pytest.mark.golden
 @pytest.mark.parametrize("name", CONTRIB)
-def test_golden_contrib_smallres(name):
+def test_golden_contrib_smallres(reference_inputs, name):
     import re
 
     from tests.conftest import fresh_golden_custom

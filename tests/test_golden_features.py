@@ -221,14 +221,11 @@ def test_tonemap_and_hdr_output():
 
 
 def _checker_png() -> bytes:
-    from PIL import Image
+    from advanced_cpu_raytracing_tpu.scene.images import encode_png
 
     rng = np.random.default_rng(42)
     base = rng.integers(30, 225, (8, 8, 3), dtype=np.uint8)
-    img = np.kron(base, np.ones((2, 2, 1), np.uint8))  # 16x16
-    buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(np.kron(base, np.ones((2, 2, 1), np.uint8)))  # 16x16
 
 
 def test_image_textures_nearest_and_bilinear():
@@ -423,8 +420,8 @@ def test_path_tracing_russian_roulette_self_consistency():
         RenderOptions,
         trace_radiance,
     )
+    from advanced_cpu_raytracing_tpu.render.camera import build_camera
     from advanced_cpu_raytracing_tpu.render.renderer import (
-        _camera_cached,
         options_for_camera,
     )
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
@@ -439,7 +436,7 @@ def test_path_tracing_russian_roulette_self_consistency():
     scene_path, _ = fresh_golden_custom(name, xml, aux_files={})
     cfg = load_scene(str(scene_path))
     pack = pack_scene(cfg)
-    cam = _camera_cached(cfg.cameras[0])
+    cam = build_camera(cfg.cameras[0])
     base = options_for_camera(cfg, cfg.cameras[0])
 
     rng = np.random.default_rng(3)
@@ -721,9 +718,7 @@ def test_mesh_perlin_bump_vs_reference():
     and bump_normal plus a mirror — vs the reference binary.  Also covers
     the reference's uv-gate quirk (mesh.cpp:245: the whole normal/bump block
     needs TexCoordData, even for UV-free perlin bump), which the pack
-    replicates by clearing the slots (scene/pack.py::tex_slots).  On TPU
-    this scene routes through the fused megakernel's lane-gathered perm
-    table (tests/test_megakernel.py proves kernel==wavefront)."""
+    replicates by clearing the slots (scene/pack.py::tex_slots)."""
     import re
 
     from tests.test_megakernel import PERLIN_SCENE
@@ -732,8 +727,8 @@ def test_mesh_perlin_bump_vs_reference():
     # replace_ks is intentionally NOT cross-validated (the reference samples
     # the *diffuse* texture pointer for it — see
     # test_replace_all_and_background_textures_vs_reference); strip it here
-    # so the oracle comparison stays pure.  The kernel==wavefront test keeps
-    # it (tests/test_megakernel.py::test_megakernel_perlin_textures).
+    # so the oracle comparison stays pure.  The frozen-oracle test keeps it
+    # (tests/test_megakernel.py::test_megakernel_perlin_textures).
     xml = xml.replace("<Textures>2 4</Textures>", "<Textures>2</Textures>")
     assert "<Textures>2 4" not in xml
     scene_path, gold = fresh_golden_custom("feat_meshperlin", xml)

@@ -74,9 +74,9 @@ def test_two_process_distributed_render(tmp_path):
     )
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-    from tests.conftest import HW1_INPUTS
+    from tests.conftest import SIMPLE_XML
 
-    cfg = load_scene(str(HW1_INPUTS / "simple.xml"))
+    cfg = load_scene(str(SIMPLE_XML))
     pack = pack_scene(cfg)
     cam = build_camera(cfg.cameras[0])
     opts = RenderOptions(max_depth=cfg.max_recursion_depth)

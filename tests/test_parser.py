@@ -3,7 +3,7 @@ import pytest
 
 from advanced_cpu_raytracing_tpu.scene.types import MaterialType
 from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-from tests.conftest import HW1_INPUTS
+from tests.conftest import WHITTED_XML
 
 
 def test_simple_scene(simple_scene):
@@ -35,13 +35,15 @@ def test_material_defaults(simple_scene):
 
 
 def test_conductor_materials():
-    cfg = load_scene(str(HW1_INPUTS / "cornellbox_recursive_conductors.xml"))
+    cfg = load_scene(str(WHITTED_XML))
     assert cfg.max_recursion_depth == 6
     cond = [m for m in cfg.materials if m.type == MaterialType.CONDUCTOR]
-    assert len(cond) == 2
+    assert len(cond) == 1
     assert cond[0].refractive_index == pytest.approx(0.37)
     assert cond[0].conductor_absorption_index == pytest.approx(2.82)
-    np.testing.assert_allclose(cond[0].mirror, [1, 0.86, 0.57])
+    np.testing.assert_allclose(cond[0].mirror, [0.9, 0.7, 0.4])
+    diel = [m for m in cfg.materials if m.type == MaterialType.DIELECTRIC]
+    assert len(diel) == 1 and diel[0].refractive_index == pytest.approx(1.5)
 
 
 def test_material_carry_over(tmp_path):

@@ -8,9 +8,9 @@ from advanced_cpu_raytracing_tpu.render.progressive import ProgressiveRenderer
 def _setup():
     from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-    from tests.conftest import HW1_INPUTS
+    from tests.conftest import SIMPLE_XML
 
-    cfg = load_scene(str(HW1_INPUTS / "simple.xml"))
+    cfg = load_scene(str(SIMPLE_XML))
     # shrink the camera for speed
     cfg.cameras[0].width = 16
     cfg.cameras[0].height = 16

@@ -10,12 +10,12 @@ from advanced_cpu_raytracing_tpu.ops.traverse import (
 )
 from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
-from tests.conftest import HW1_INPUTS
+from tests.conftest import SIMPLE_XML, WHITTED_XML
 
 
 @pytest.fixture(scope="module")
 def pack():
-    return pack_scene(load_scene(str(HW1_INPUTS / "simple.xml")))
+    return pack_scene(load_scene(str(SIMPLE_XML)))
 
 
 def test_primary_hits(pack):
@@ -60,7 +60,7 @@ def test_bvh_matches_brute():
     # force-BVH pack vs brute pack must agree on hits
     import dataclasses
 
-    cfg = load_scene(str(HW1_INPUTS / "cornellbox_recursive_conductors.xml"))
+    cfg = load_scene(str(WHITTED_XML))
     p_brute = pack_scene(cfg)
     p_bvh = dataclasses.replace(
         p_brute, static=dataclasses.replace(p_brute.static, use_bvh=True)

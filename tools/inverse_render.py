@@ -1,32 +1,30 @@
-"""Production-scale inverse rendering through the fused fwd+bwd kernel.
+"""Production-scale inverse rendering through the differentiable wavefront.
 
 Recovers material colors, light intensity and vertex positions from a
-multisampled 800x800 target image of the cornellbox-conductors scene
-(BASELINE.json config 5 at production scale): Adam over
-``make_diff_render`` (ops/pallas/megabwd.py), loss summed over S
-stratified sample grids per step — every step is S fused fwd+bwd kernel
-dispatches over the full frame.
+multisampled 800x800 target image of the in-repo Whitted Cornell box
+(scenes/cornell_whitted.xml): Adam over ``trace_radiance`` with the
+parameters injected into the pack (``inject_params``, as
+diff/optimize.py::make_loss does), loss summed over S stratified sample
+grids per step — every step is S fwd+bwd passes over the full frame.
 
 Identifiability: diffuse shading constrains only the PRODUCT
 k_diffuse * intensity (the albedo/illumination gauge ambiguity — only
 specular-highlight pixels see intensity alone).  The default scene
-(``--scene gauge``, round 5) BREAKS the gauge with a known (unoptimized)
+(``--scene gauge``) BREAKS the gauge with a known (unoptimized)
 directional anchor light — see ``gauge_broken_scene`` — so mat_diffuse
-and pl_intensity recover individually; ``--scene conductors`` reproduces
-the original single-light run where only the product identifies.  Vertex
-positions are fully identifiable and use a ~30x smaller Adam step (see
-the multi_transform note below).
+and pl_intensity recover individually; ``--scene whitted`` is the
+single-light run where only the product identifies.  Vertex positions are
+fully identifiable and use a ~30x smaller Adam step (see the
+multi_transform note below).
 
-Run alone on the TPU (one process at a time):
     python tools/inverse_render.py [--steps N] [--spp S] [--res W]
-        [--scene {gauge,conductors}] [--texture]
+        [--scene {gauge,whitted}] [--texture] [--out FILE]
 
-``--texture`` (round 5) switches to INVERSE TEXTURE RECOVERY: a 64x64
-bilinear replace_kd texture is recovered from renders through the fused
-kernel's texel-cotangent streams, starting from flat grey + noise
-(measured 4.8% max-rel / 58.7 dB at 300 steps — BASELINE.md).
-Prints per-step losses and a summary line; writes the convergence record
-to tools/artifacts/inverse_render.json.
+``--texture`` switches to INVERSE TEXTURE RECOVERY: a 64x64 bilinear
+replace_kd texture is recovered from renders (the atlas is a
+differentiable leaf of the pack), starting from flat grey + noise.
+Prints per-step losses and a summary line; ``--out`` also writes the
+summary as JSON.
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ import json
 import os
 import pathlib
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -44,50 +43,50 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from advanced_cpu_raytracing_tpu.diff.params import extract_params
-from advanced_cpu_raytracing_tpu.ops.pallas.megabwd import (
-    bwd_eligible,
-    make_diff_render,
+from advanced_cpu_raytracing_tpu.diff.params import (
+    extract_params,
+    inject_params,
 )
-from advanced_cpu_raytracing_tpu.render.camera import build_camera, generate_rays
-from advanced_cpu_raytracing_tpu.render.renderer import options_for_camera
+from advanced_cpu_raytracing_tpu.render.camera import build_camera
+from advanced_cpu_raytracing_tpu.render.integrator import (
+    RenderOptions,
+    trace_radiance,
+)
 from advanced_cpu_raytracing_tpu.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene
 
-SCENE = "/root/reference/archive/hw1_inputs/cornellbox_recursive_conductors.xml"
+SCENE = str(pathlib.Path(__file__).resolve().parents[1] / "scenes"
+            / "cornell_whitted.xml")
 FIELDS = ("mat_diffuse", "pl_intensity", "verts")
 
 
-def gauge_broken_scene() -> str:
-    """Author the GAUGE-BROKEN inverse scene (round 5, VERDICT r4 item 4).
+def gauge_broken_scene(workdir: pathlib.Path) -> str:
+    """Author the GAUGE-BROKEN inverse scene.
 
     Diffuse shading constrains only the product kd * intensity: scaling
     every optimized albedo by alpha and every optimized light by 1/alpha
-    preserves all diffuse pixels, so the single-light conductors run could
-    only recover the product.  Adding a DirectionalLight with KNOWN
-    (unoptimized) radiance anchors the albedos absolutely — kd is pinned
-    by the known-light term, and the point-light intensity then separates.
-    The scene is the cornellbox-conductors XML plus that one anchor light,
-    authored at runtime (no reference file is copied into the repo)."""
+    preserves all diffuse pixels, so the single-light run can only recover
+    the product.  Adding a DirectionalLight with KNOWN (unoptimized)
+    radiance anchors the albedos absolutely — kd is pinned by the
+    known-light term, and the point-light intensity then separates.  The
+    scene is the Whitted Cornell box plus that one anchor light."""
     xml = pathlib.Path(SCENE).read_text()
     anchor = """<DirectionalLight id="1">
             <Direction>0.35 -1 -0.45</Direction>
-            <Radiance>4000 4000 4000</Radiance>
+            <Radiance>40 40 40</Radiance>
         </DirectionalLight>
     """
     assert "DirectionalLight" not in xml
     xml = xml.replace("</Lights>", anchor + "</Lights>")
-    out = pathlib.Path("/tmp/acrt_inverse_gauge.xml")
+    out = workdir / "inverse_gauge.xml"
     out.write_text(xml)
     return str(out)
 
 
-def texture_scene(n: int = 64) -> str:
-    """Authored scene for INVERSE TEXTURE RECOVERY (round 5, VERDICT r4
-    item 3): an n x n bilinear replace_kd texture on a tilted floor quad
-    filling most of the frame + a point light.  The texture is the
-    unknown; tools recover it from renders through the fused fwd+bwd
-    kernel's texel-cotangent streams."""
+def texture_scene(workdir: pathlib.Path, n: int = 64) -> str:
+    """Authored scene for INVERSE TEXTURE RECOVERY: an n x n bilinear
+    replace_kd texture on a tilted floor quad filling most of the frame +
+    a point light.  The texture is the unknown."""
     from advanced_cpu_raytracing_tpu.post.writers import write_png
 
     ys, xs = np.mgrid[0:n, 0:n] / float(n)
@@ -96,8 +95,7 @@ def texture_scene(n: int = 64) -> str:
         30 + 60 * ((np.floor(xs * 8) + np.floor(ys * 8)) % 2),
         220 * ys,
     ], axis=-1).clip(0, 255).astype(np.uint8)
-    td = pathlib.Path("/tmp/acrt_inverse_tex")
-    td.mkdir(exist_ok=True)
+    td = workdir
     write_png(str(td / "tex.png"), tex)
     xml = f"""<Scene>
   <BackgroundColor>5 5 5</BackgroundColor>
@@ -154,29 +152,38 @@ def main() -> int:
     variant = arg("--scene", "gauge", str)
     if "--texture" in sys.argv:
         variant = "texture"
-    interpret = jax.default_backend() != "tpu"
+    out_path = arg("--out", None, str)
 
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="inverse_render_"))
     fields = FIELDS
-    if variant == "conductors":
+    if variant == "whitted":
         scene_path = SCENE
     elif variant == "texture":
-        scene_path = texture_scene()
+        scene_path = texture_scene(workdir)
         fields = ("img_atlas",)
     else:
-        scene_path = gauge_broken_scene()
+        scene_path = gauge_broken_scene(workdir)
         # the gauge demo separates MATERIAL from LIGHT with known
-        # geometry (BASELINE.json config 5's claim); joint vertex
-        # recovery under the anchor's hard directional shadows
-        # random-walks (visibility gradients are stop-grad) and is
-        # already demonstrated by the conductors artifact
+        # geometry; joint vertex recovery under the anchor's hard
+        # directional shadows random-walks (visibility gradients are
+        # stop-grad) and is shown by the whitted variant
         fields = ("mat_diffuse", "pl_intensity")
     cfg = load_scene(scene_path)
     pack = pack_scene(cfg)
     cam_cfg = cfg.cameras[0]
     cam = build_camera(cam_cfg)
-    opts = options_for_camera(cfg, cam_cfg)
-    assert bwd_eligible(pack.static, opts, pack)
-    render = make_diff_render(pack, opts, interpret=interpret)
+    depth = cfg.max_recursion_depth
+    # fixed-trip differentiable wavefront; dielectrics take the stochastic
+    # single-path estimator, and one fixed key makes the target and every
+    # step see the same draws
+    opts = RenderOptions(max_depth=depth, differentiable=True,
+                         max_iters=depth + 2,
+                         stochastic_dielectric=pack.static.has_dielectric)
+    key = jax.random.PRNGKey(0)
+
+    def render(params, px, py):
+        return trace_radiance(inject_params(pack, params), cam, px, py, key,
+                              opts)
 
     # stratified sample grid: spp fixed jitters of the res x res pixel grid
     # (the reference's n^2 stratified cells, main.cpp:44-76, with one fixed
@@ -190,16 +197,15 @@ def main() -> int:
     for s in range(spp):
         px = jnp.asarray((xs + jit[s, 0]) * sx, jnp.float32)
         py = jnp.asarray((ys + jit[s, 1]) * sy, jnp.float32)
-        o, d = generate_rays(cam, px, py, jnp.zeros((n, 2)), dof=False)
-        rays.append((o, d))
+        rays.append((px, py))
 
     true_params = extract_params(pack, fields)
 
     @jax.jit
-    def render_target(params, o, d):
-        return render(params, o, d)
+    def render_target(params, px, py):
+        return render(params, px, py)
 
-    targets = [render_target(true_params, o, d) for (o, d) in rays]
+    targets = [render_target(true_params, px, py) for (px, py) in rays]
     jax.block_until_ready(targets)
 
     # perturb: materials darkened, light brightened, geometry nudged; the
@@ -231,8 +237,8 @@ def main() -> int:
 
     u_start = {k: v / scales[k] for k, v in start.items()}
 
-    def loss_fn(u, o, d, target):
-        img = render(to_p(u), o, d)
+    def loss_fn(u, px, py, target):
+        img = render(to_p(u), px, py)
         return jnp.mean(((img - target) / 255.0) ** 2)
 
     # verts get a ~30x smaller step than color/intensity fields: an Adam
@@ -248,8 +254,8 @@ def main() -> int:
     opt_state = tx.init(u_start)
 
     @jax.jit
-    def step_one(u, opt_state, o, d, target):
-        loss, grads = jax.value_and_grad(loss_fn)(u, o, d, target)
+    def step_one(u, opt_state, px, py, target):
+        loss, grads = jax.value_and_grad(loss_fn)(u, px, py, target)
         updates, opt_state = tx.update(grads, opt_state)
         u = optax.apply_updates(u, updates)
         return u, opt_state, loss
@@ -331,8 +337,9 @@ def main() -> int:
 
     summary = {
         "scene": {
-            "conductors": "cornellbox_recursive_conductors",
-            "gauge": "conductors + known directional anchor (gauge-broken)",
+            "whitted": "cornell_whitted",
+            "gauge": "cornell_whitted + known directional anchor "
+                     "(gauge-broken)",
             "texture": "authored 64x64 bilinear replace_kd floor "
                        "(inverse TEXTURE recovery)",
         }[variant],
@@ -357,17 +364,13 @@ def main() -> int:
             10.0 * np.log10(255.0 ** 2 / max(tex_mse, 1e-12)), 2)
     else:
         summary["gauge"] = (
-            "ambiguous (single optimized light)" if variant == "conductors"
+            "ambiguous (single optimized light)" if variant == "whitted"
             else "broken: known DirectionalLight anchors albedo, so "
                  "mat_diffuse and pl_intensity separate")
         summary["diffuse_x_intensity_rel_err"] = prod_err
     print(json.dumps(summary), flush=True)
-    name = {"conductors": "inverse_render.json",
-            "gauge": "inverse_render_gauge.json",
-            "texture": "inverse_render_texture.json"}[variant]
-    out = pathlib.Path(__file__).parent / "artifacts" / name
-    out.parent.mkdir(exist_ok=True)
-    out.write_text(json.dumps(summary, indent=1))
+    if out_path:
+        pathlib.Path(out_path).write_text(json.dumps(summary, indent=1))
     return 0
 
 
